@@ -1,6 +1,6 @@
 """Burst MSK demodulator (600/1200 bps Aero R/T channels).
 
-TPU-first redesign of the reference's burst machinery
+Block-vectorized redesign of the reference's burst machinery
 (ref: decode/burstmskdemodulator.cpp): the reference detects bursts with a
 per-sample autocorrelation arm + PeakDetector and estimates carrier
 frequency/phase/amplitude from 32k-point "trident" FFTs per candidate

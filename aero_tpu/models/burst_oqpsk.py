@@ -1,6 +1,6 @@
 """Burst OQPSK demodulator (10500 bps C-band R/T channels).
 
-TPU-first redesign of the reference's burst OQPSK path
+Block-vectorized redesign of the reference's burst OQPSK path
 (ref: decode/burstoqpskdemodulator.cpp): the reference detects bursts with a
 conjugate-product arm, estimates carrier from 32k "trident" FFTs
 (:341-456) and runs a primed per-sample loop with x4-PLL preamble

@@ -1,6 +1,6 @@
 """Continuous MSK demodulator (600/1200 bps Aero P channel) and modulator.
 
-TPU-first redesign of the reference's per-sample loop
+Block-vectorized redesign of the reference's per-sample loop
 (ref: decode/mskdemodulator.cpp:252-428).  Where the reference runs three
 per-sample feedback loops (timing PLL :323-340, carrier PLL :346-369, AGC),
 this demodulator is FULLY FEEDFORWARD and dense — no lax.scan at all:
@@ -26,7 +26,7 @@ this demodulator is FULLY FEEDFORWARD and dense — no lax.scan at all:
       DSP.cpp:523-548), real arm negated (ref :391-412), bytes 0..255
 
 Everything is convolutions, FFTs, small matmuls (the tone-grid DFT) and
-elementwise work — ideal VPU/MXU shape, vmappable over a VFO axis.
+elementwise work — dense, vmappable over a VFO axis.
 
 Block length must be a multiple of 2*sps (16000 works for every (Fs, fb)
 pair the reference supports: sps in {10, 20, 40, 80}).

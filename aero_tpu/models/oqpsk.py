@@ -1,7 +1,7 @@
 """Continuous OQPSK demodulator (10500 bps C-band P channel; 8400 bps
 C-channel base) and modulator.
 
-TPU-first redesign of the reference's per-sample loop
+Block-vectorized redesign of the reference's per-sample loop
 (ref: decode/oqpskdemodulator.cpp:284-560).  Same fully-feedforward
 architecture as models/msk.py:
 

@@ -1,7 +1,7 @@
 """Native (C++) host-side components.
 
 The reference leans on native libraries for its runtime (libcorrect Viterbi,
-libacars, libzmq; SURVEY.md §2).  Here the TPU compute path is JAX/Pallas,
+libacars, libzmq; SURVEY.md §2).  Here the device compute path is JAX,
 and the host-side hot spots get native equivalents:
 
 - ``libaeroviterbi.so``: K=7 r=1/2 soft Viterbi (libcorrect replacement)

@@ -3,8 +3,8 @@
 // Native replacement for the reference's libcorrect dependency
 // (ref: decode/jconvolutionalcodec.cpp:10-16 — K=7, rate 1/2, polys
 // {109, 79}).  Used by the per-VFO host deframers for single-frame decodes
-// where a JAX dispatch would dominate; the batched TPU path uses the Pallas
-// kernel (aero_tpu/ops/pallas/viterbi_kernel.py) instead.
+// where a JAX dispatch would dominate; batched device decodes use the
+// lax.scan decoder (aero_tpu/protocol/batch_framing.py) instead.
 //
 // Convention matches aero_tpu.protocol.viterbi: shift register takes the
 // newest bit at the LSB, output bit i = parity(reg & poly[i]), soft bytes

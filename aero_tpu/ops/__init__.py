@@ -1,4 +1,4 @@
-"""Pure-JAX DSP primitives for block-synchronous streaming on TPU.
+"""Pure-JAX DSP primitives for block-synchronous streaming.
 
 Every streaming op follows one convention:
 

@@ -1,4 +1,4 @@
-"""Streaming block FIR filtering on TPU.
+"""Streaming block FIR filtering.
 
 The reference filters one sample at a time through ring buffers
 (``decode/DSP.cpp:266-355``, ``publish/halfbanddecimator.cpp:35-60``).  Here a
@@ -8,7 +8,7 @@ infinite streaming filter regardless of block boundaries.
 
 All ops take ``[..., T]`` blocks; leading axes are batch (VFO) axes and may be
 vmapped/sharded.  Complex inputs with real taps are filtered as two real
-convolutions (TPU convs run on the MXU which is real-valued).
+convolutions.
 """
 
 from __future__ import annotations

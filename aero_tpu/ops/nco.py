@@ -1,8 +1,8 @@
 """Numerically-controlled oscillators as vectorized phase ramps.
 
 The reference implements NCOs as per-sample wavetable walks
-(``publish/oscillator.cpp:18-39``, ``decode/DSP.cpp:35-262`` WaveTable).  On
-TPU we generate the whole block's phasor ramp at once: ``exp(j*(phi0 + 2*pi*
+(``publish/oscillator.cpp:18-39``, ``decode/DSP.cpp:35-262`` WaveTable).
+Here we generate the whole block's phasor ramp at once: ``exp(j*(phi0 + 2*pi*
 f/Fs * n))`` over ``n = 0..T-1`` and carry only the end phase between blocks.
 
 Phase is carried in *cycles* (not radians) and wrapped with ``mod 1`` so

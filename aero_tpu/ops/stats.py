@@ -34,7 +34,7 @@ def moving_average_apply(state, x, alpha):
 
     Equivalent role to MovingAverage (decode/DSP.cpp:392-430) at block level:
     y[n] = (1-alpha) y[n-1] + alpha x[n], carried across blocks.
-    Implemented as an associative scan (log-depth on TPU).
+    Implemented as an associative scan (log depth).
     """
     import jax
 

@@ -12,7 +12,7 @@ Usage (one line per process, same coordinator):
     python -m aero_tpu.parallel.selftest --process-id 0 --num-processes 2
     python -m aero_tpu.parallel.selftest --process-id 1 --num-processes 2
 
-On TPU pods, drop --devices-per-process and let jax discover real chips;
+On multi-device hosts, drop --devices-per-process and let jax find them;
 on CPU hosts each process fakes --devices-per-process virtual devices.
 Exit code 0 and a final "MH-SELFTEST-OK" line mean success.
 """

@@ -150,7 +150,7 @@ class StreamingViterbi:
              np.full(self.LOOKAHEAD, 128, dtype=np.float32)])
         # single-frame host decodes go through the native C++ decoder when
         # available (aero_tpu/native, the libcorrect replacement); batched
-        # device decodes use the Pallas kernel instead
+        # device decodes vmap viterbi_decode_soft (protocol/batch_framing)
         from aero_tpu import native
         if native.have_native():
             bits = native.viterbi_decode_soft_native(buf)

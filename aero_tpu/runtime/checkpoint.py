@@ -2,7 +2,7 @@
 
 The reference has no checkpointing (SURVEY.md §5 'Checkpoint/resume:
 none'): restarting it loses lock and whatever frames were in flight, and
-it re-acquires from the air in seconds.  A TPU station serving hundreds
+it re-acquires from the air in seconds.  A station serving hundreds
 of VFOs carries real state worth keeping — per-VFO PFB and demodulator
 carries on the device, hunter scan positions, deframer locks and trellis
 history, burst-detector rings, ISU/ACARS reassembly in progress — so

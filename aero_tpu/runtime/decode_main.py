@@ -16,7 +16,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="aero-decode",
-        description="TPU-native Inmarsat Aero demodulator/decoder")
+        description="Inmarsat Aero demodulator/decoder")
     p.add_argument("-b", "--bit-rate", type=int, default=600,
                    choices=[600, 1200, 8400, 10500],
                    help="channel bit rate")
@@ -47,23 +47,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--voice-out", default=None,
                    help="write C-channel voice codec frames to this file")
     p.add_argument("--platform", default="cpu",
-                   help="JAX platform for this process (default cpu: a "
-                        "single-VFO decoder is host-scale work — the TPU "
-                        "path is the batched VFO bank, aero_tpu.parallel)")
+                   help="JAX platform for this process (default cpu: "
+                        "aero-decode runs one process per VFO, and a JAX "
+                        "process reserves most of a GPU's memory when it "
+                        "opens it, so a second decoder on the same GPU "
+                        "would fail; the GPU serves the whole bank through "
+                        "aero_tpu.runtime.station_main)")
     p.add_argument("-v", "--verbose", action="count", default=0)
-    p.add_argument("--compile-cache", default=None, metavar="DIR",
-                   help="persistent XLA compilation cache dir (fast restarts)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.platform:
-        import jax
-        jax.config.update("jax_platforms", args.platform)
-    if args.compile_cache:
-        from aero_tpu.utils.profiling import enable_compile_cache
-        enable_compile_cache(args.compile_cache)
+    import jax
+    jax.config.update("jax_platforms", args.platform)
+    from aero_tpu.utils.profiling import enable_compile_cache
+    enable_compile_cache()
     from aero_tpu.runtime.decoder import Decoder, DecoderOptions
 
     opts = DecoderOptions(

@@ -21,7 +21,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="aero-publish",
-        description="TPU-native wideband channelizer/publisher")
+        description="wideband channelizer/publisher")
     p.add_argument("-c", "--settings", required=True,
                    help="SDRReceiver-compatible INI file")
     p.add_argument("-d", "--device", default=None,
@@ -37,22 +37,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="loop the IQ file forever")
     p.add_argument("--legacy-topic-len5", action="store_true",
                    help="reproduce the reference's 5-byte topic frames")
-    p.add_argument("--platform", default=None,
-                   help="JAX platform override (e.g. cpu, tpu)")
+    p.add_argument("--platform", default="cuda",
+                   help="JAX platform (default cuda: start fails when the "
+                        "GPU cannot be opened; pass cpu on hosts without "
+                        "one)")
     p.add_argument("-v", "--verbose", action="count", default=0)
-    p.add_argument("--compile-cache", default=None, metavar="DIR",
-                   help="persistent XLA compilation cache dir (fast restarts)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.platform:
-        import jax
-        jax.config.update("jax_platforms", args.platform)
-    if args.compile_cache:
-        from aero_tpu.utils.profiling import enable_compile_cache
-        enable_compile_cache(args.compile_cache)
+    import jax
+    jax.config.update("jax_platforms", args.platform)
+    from aero_tpu.utils.profiling import enable_compile_cache
+    enable_compile_cache()
     from aero_tpu.channelizer import load_ini, Channelizer
     from aero_tpu.io.zmq_transport import ZmqPublisher
 

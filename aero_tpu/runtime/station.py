@@ -7,7 +7,7 @@ station runs the whole receive chain in-process:
     wideband IQ blocks
       -> Channelizer (batched mix + halfband cascades, jitted groups)
       -> MskVfoBank: ALL same-rate VFOs demodulated as one vmapped,
-         VFO-sharded TPU step (aero_tpu/parallel/vfo_bank.py)
+         VFO-sharded device step (aero_tpu/parallel/vfo_bank.py)
       -> per-VFO host deframers -> SU dispatch -> ACARS sink
 
 Per-VFO observability (samples/s, real-time factor, lock state, frames,
@@ -125,7 +125,7 @@ class Station:
         self.stats = StationStats()
 
         # group demodulatable sub VFOs by (out_rate, data_rate): each group
-        # becomes one batched TPU bank; every member gets its own deframer
+        # becomes one batched device bank; every member gets its own deframer
         self.groups = defaultdict(list)
         self.burst_vfos = []
         for i, s in enumerate(cfg.subs):

@@ -2,12 +2,15 @@
 
 The configuration aero-cli cannot express (SURVEY.md §2.5): one wideband
 IQ stream, every VFO channelized + demodulated + decoded in-process, ACARS
-on stdout/forwarders, periodic stats on stderr.
+on stdout/forwarders, periodic stats on stderr.  The first stderr line
+names the device: {"device": {"platform", "kind", "count"}}.
 
 Usage:
   python -m aero_tpu.runtime.station_main -c settings.ini --iq-file wide.cf32
   python -m aero_tpu.runtime.station_main -c settings.ini --iq-stdin \
-      --backend pfb --format jsondump -f jsondump=tcp://host:5571
+      --format jsondump -f jsondump=tcp://host:5571
+  python -m aero_tpu.runtime.station_main -c settings.ini --iq-file wide.cf32 \
+      --platform cpu          # hosts without a GPU
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="aero-station",
-        description="TPU-native full-chain Inmarsat Aero station")
+        description="full-chain Inmarsat Aero station")
     p.add_argument("-c", "--settings", required=True)
     p.add_argument("--iq-file", default=None, help="cf32 interleaved IQ")
     p.add_argument("--iq-stdin", action="store_true")
@@ -33,24 +36,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", default="fused",
                    choices=["tree", "pfb", "fused"],
                    help="fused (default): device-resident one-jit-per-block "
-                        "production path, ~30-38x real time on the 54degW "
-                        "26-VFO bank; tree/pfb: classic reference-shaped "
-                        "station for comparison, ~1.9x real time on the "
-                        "same bank (barely real-time at scale)")
+                        "served path; tree/pfb: classic reference-shaped "
+                        "station, which moves per-VFO audio between host "
+                        "and device and is kept for comparison")
     p.add_argument("--ingest-dtype", default="int16",
                    choices=["int2", "int4", "int8", "int16", "float32"],
                    help="fused backend host->device IQ quantization")
-    p.add_argument("--compile-cache", default=None, metavar="DIR",
-                   help="persistent XLA compilation cache directory: "
-                        "restarts skip the ~10-40 s first-compile cost")
     p.add_argument("--format", default="jsondump",
                    choices=["jaero", "jsondump", "text"])
     p.add_argument("-s", "--station-id",
                    default=f"{socket.gethostname()}-AERO-INMARSAT")
     p.add_argument("-f", "--forwarder", action="append", default=[],
                    metavar="FMT=URL")
-    p.add_argument("--platform", default=None,
-                   help="JAX platform override (e.g. cpu)")
+    p.add_argument("--platform", default="cuda",
+                   help="JAX platform (default cuda: start fails when the "
+                        "GPU cannot be opened; pass cpu on hosts without "
+                        "one)")
     p.add_argument("--stats-every", type=float, default=10.0,
                    help="seconds between stats lines on stderr")
     p.add_argument("--aircraft-db", default=None, metavar="CSV",
@@ -78,12 +79,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    t_start = time.perf_counter()
     import jax
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
-    if args.compile_cache:
-        from aero_tpu.utils.profiling import enable_compile_cache
-        enable_compile_cache(args.compile_cache)
+    jax.config.update("jax_platforms", args.platform)
+    from aero_tpu.utils.profiling import enable_compile_cache
+    enable_compile_cache()
+    devices = jax.devices()
+    print(json.dumps({"device": {"platform": devices[0].platform,
+                                 "kind": devices[0].device_kind,
+                                 "count": len(devices)}}),
+          file=sys.stderr, flush=True)
     from aero_tpu.channelizer import load_ini
     from aero_tpu.runtime.station import Station
     from aero_tpu.io.output import to_output_format
@@ -126,9 +131,9 @@ def main(argv=None) -> int:
         n_vfos = len(cfg.mains) + len(cfg.subs)
         if n_vfos > 8:
             print(f"warning: --backend {args.backend} is the classic "
-                  f"comparison shape (~1.9x real time measured on the "
-                  f"26-VFO 54degW bank); {n_vfos} VFOs may not keep up — "
-                  f"the default fused backend runs 30x+", file=sys.stderr)
+                  f"comparison shape and may not keep up with {n_vfos} "
+                  f"VFOs; the default fused backend is the served path",
+                  file=sys.stderr)
         return Station(cfg, on_acars=on_acars, on_voice=on_voice,
                        station_id=args.station_id, backend=args.backend,
                        aircraft_db=args.aircraft_db,
@@ -179,6 +184,7 @@ def main(argv=None) -> int:
     notifier = EventNotifier(on_hangup=hup_stats).install()
 
     carry_box = [initial_carry]     # pump residual, persisted in ckpts
+    first_block = []                # seconds from start to block 1 done
 
     def pump(reader):
         nonlocal last_stats, last_ckpt
@@ -190,6 +196,8 @@ def main(argv=None) -> int:
             while len(carry) >= B:
                 st.process(carry[:B])
                 carry = carry[B:]
+                if not first_block:
+                    first_block.append(time.perf_counter() - t_start)
             carry_box[0] = carry
             if (args.checkpoint
                     and time.time() - last_ckpt >= args.checkpoint_every):
@@ -233,7 +241,9 @@ def main(argv=None) -> int:
     s = st.stats
     final = {"wideband_samples": s.wideband_samples,
              "frames": s.frames, "su_ok": s.su_ok, "su_bad": s.su_bad,
-             "acars": s.acars}
+             "acars": s.acars,
+             "first_block_s": first_block[0] if first_block else None,
+             "wall_s": time.perf_counter() - t_start}
     if fwd is not None:
         fwd.flush()
         fwd.close()

@@ -4,7 +4,12 @@ lacks; SURVEY.md §5 'use JAX profiler/xprof')."""
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+
+# the repository checkout: aero_tpu/utils/ -> aero_tpu/ -> checkout
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 @contextlib.contextmanager
@@ -44,10 +49,22 @@ class RateMeter:
         return self.samples_per_s / self.sample_rate
 
 
-def enable_compile_cache(path: str, min_compile_secs: float = 0.5) -> None:
+def compile_cache_dir() -> str:
+    """``$JAX_COMPILATION_CACHE_DIR`` when set, else ``<checkout>/.jax_cache``.
+
+    The path is fixed (no temp name, pid or time in it): the cache only
+    hits when a restart finds the directory where the last run left it."""
+    return (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or os.path.join(CHECKOUT, ".jax_cache"))
+
+
+def enable_compile_cache(min_compile_secs: float = 0.5) -> str:
     """Persistent XLA compilation cache: restarts skip the first-compile
-    cost.  One place for the policy; all three CLIs call this."""
+    cost.  One place for the policy; all three CLIs call this.  Returns
+    the directory."""
     import jax
+    path = compile_cache_dir()
     jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs",
                       min_compile_secs)
+    return path

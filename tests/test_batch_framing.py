@@ -54,7 +54,7 @@ def test_batch_decode_matches_stream():
     assert recovered == len(fields)
 
 
-def test_batch_decode_pallas_interpret_agrees():
+def test_batch_decode_600_frames_pass_crc():
     rng = np.random.default_rng(2)
     rate = 600
     spec = FRAME_SPECS[rate]

@@ -10,46 +10,15 @@ Ref: /root/reference/decode/aerol.cpp:2145-2430 (C channel),
 
 import numpy as np
 import pytest
-from scipy.signal import firwin, lfilter
 
 from aero_tpu.channelizer import load_ini
 from aero_tpu.runtime.fused_station import FusedStation
-from aero_tpu.models.msk import msk_modulate
 from aero_tpu.models.oqpsk import oqpsk_modulate
-from aero_tpu.protocol.framing import build_p_frames, FRAME_SPECS
 from aero_tpu.protocol.c_framing import build_c_frames
-from aero_tpu.protocol.rt_framing import build_t_burst
 from aero_tpu.protocol.crc import append_crc16_bytes
-from aero_tpu.protocol.isu import make_acars_userdata, segment_isu
-
-FS = 288000
-CENTER = 1545000000
-
-
-def _to_wideband(audio, fs_audio, delta, n_total):
-    """Real audio -> complex wideband at ``delta`` Hz off center."""
-    up = FS // fs_audio
-    x = np.zeros(n_total * up, np.float32)
-    a = audio[: n_total]
-    x[: len(a) * up: up] = a * up
-    bb = lfilter(firwin(511, 1.0 / up), 1.0, x).astype(np.complex64)
-    t = np.arange(len(bb)) / FS
-    return (bb * np.exp(2j * np.pi * delta * t)).astype(np.complex64)
-
-
-def _p_stream(rate, tag, lead):
-    ud = make_acars_userdata("2", "N" + tag[:5], "!", "H1", "A", tag)
-    sus = [append_crc16_bytes(b) for b in segment_isu(ud, 0x300000, 0x41)]
-    fill = append_crc16_bytes(bytes([0x01] + [0] * 9))
-    per = FRAME_SPECS[rate].payload_info_bits // 96   # SUs per infofield
-    while len(sus) % per:
-        sus.append(fill)
-    fields = [b"".join(sus[i:i + per]) for i in range(0, len(sus), per)]
-    return build_p_frames(fields, rate, lead_frames=lead)
-
-
-MIXED_TOPICS = {"M600", "M1200", "Q10500", "C8400", "BURST",
-                "M600b", "M1200b", "Q10500b", "C8400b", "BURSTb"}
+from aero_tpu.synth import (MIXED_FS as FS, MIXED_CENTER as CENTER,
+                            MIXED_TOPICS, mixed_ini, mixed_wideband,
+                            to_wideband)
 
 
 @pytest.fixture(scope="module")
@@ -58,59 +27,9 @@ def mixed():
     rate group so every group is shardable over a 2-device mesh), the
     wideband signal with content on one VFO of each group, and the
     single-device FusedStation's results as the equality reference."""
-    rng = np.random.default_rng(7)
-    ini = (f"[General]\nsample_rate={FS}\ncenter_frequency={CENTER}\n"
-           "[vfos]\nsize=10\n"
-           f"1\\frequency={CENTER + 6000}\n1\\data_rate=600\n1\\topic=M600\n"
-           f"2\\frequency={CENTER + 24000}\n2\\data_rate=1200\n2\\topic=M1200\n"
-           f"3\\frequency={CENTER + 48000}\n3\\data_rate=10500\n3\\topic=Q10500\n"
-           f"4\\frequency={CENTER + 96000}\n4\\data_rate=8400\n4\\topic=C8400\n"
-           f"5\\frequency={CENTER - 30000}\n5\\data_rate=600\n5\\topic=BURST\n"
-           "5\\burst=1\n"
-           f"6\\frequency={CENTER - 12000}\n6\\data_rate=600\n6\\topic=M600b\n"
-           f"7\\frequency={CENTER - 72000}\n7\\data_rate=1200\n7\\topic=M1200b\n"
-           f"8\\frequency={CENTER - 110000}\n8\\data_rate=10500\n"
-           "8\\topic=Q10500b\n"
-           f"9\\frequency={CENTER - 96000}\n9\\data_rate=8400\n9\\topic=C8400b\n"
-           f"10\\frequency={CENTER + 72000}\n10\\data_rate=600\n"
-           "10\\topic=BURSTb\n10\\burst=1\n")
+    ini = mixed_ini()
     cfg = load_ini(ini, is_text=True)
-
-    # C-channel content: 2 frames of known voice + signalling
-    cframes = []
-    for _ in range(2):
-        csus = [append_crc16_bytes(
-            bytes([0x30]) + bytes(rng.integers(0, 256, 9,
-                                               dtype=np.uint8).tolist()))
-            for _ in range(3)]
-        voice = bytes(rng.integers(0, 256, 300, dtype=np.uint8).tolist())
-        cframes.append((csus, voice))
-
-    # burst content: one T burst
-    bsus = segment_isu(make_acars_userdata("2", "NBURST", "!", "H1", "A",
-                                           "MIX BURST"), 0x444444, 0x41)
-    bt = build_t_burst(0x444444, 0x41, bsus, preamble_bits=96)
-
-    dur = 9 * FS           # 9 s of wideband
-    wb = np.zeros(dur, np.complex64)
-    wb += _to_wideband(msk_modulate(_p_stream(600, "MIX 600", 2),
-                                    12000, 600.0, freq=1000.0),
-                       12000, 6000, dur // 24)
-    wb += _to_wideband(msk_modulate(_p_stream(1200, "MIX 1200", 3),
-                                    24000, 1200.0, freq=1000.0),
-                       24000, 24000, dur // 12)
-    wb += _to_wideband(oqpsk_modulate(_p_stream(10500, "MIX 10500", 6),
-                                      48000, 10500.0, freq=8000.0),
-                       48000, 48000, dur // 6)
-    wb += _to_wideband(oqpsk_modulate(build_c_frames(cframes, lead_frames=3),
-                                      48000, 8400, freq=8000.0),
-                       48000, 96000, dur // 6)
-    burst_audio = np.concatenate(
-        [np.zeros(2 * 12000, np.float32),
-         msk_modulate(bt, 12000, 600.0, freq=3000.0) * 1.6])
-    wb += _to_wideband(burst_audio, 12000, -30000, dur // 24)
-    wb += (rng.normal(0, 0.003, dur)
-           + 1j * rng.normal(0, 0.003, dur)).astype(np.complex64)
+    wb, cframes = mixed_wideband()
 
     got = []
     voices = []
@@ -258,9 +177,9 @@ def test_classic_station_8400_c_channel():
         cframes.append((csus, voice))
 
     dur = 6 * FS
-    wb = _to_wideband(oqpsk_modulate(build_c_frames(cframes, lead_frames=3),
-                                     48000, 8400, freq=8000.0),
-                      48000, 96000, dur // 6)
+    wb = to_wideband(oqpsk_modulate(build_c_frames(cframes, lead_frames=3),
+                                    48000, 8400, freq=8000.0),
+                     48000, 96000, dur // 6, FS)
     wb = np.concatenate([wb, np.zeros(dur - len(wb), np.complex64)])
     wb += (rng.normal(0, 0.003, dur)
            + 1j * rng.normal(0, 0.003, dur)).astype(np.complex64)
@@ -284,3 +203,59 @@ def test_classic_station_8400_c_channel():
     bad_burst = load_ini(ini + "1\\burst=1\n", is_text=True)
     with pytest.raises(ValueError, match="burst VFO"):
         Station(bad_burst)
+
+
+def _decode(ini, wb):
+    got = []
+    st = FusedStation(load_ini(ini, is_text=True),
+                      on_acars=lambda t, item: got.append((t, item.message)))
+    w = np.concatenate([wb, np.zeros(2 * st.block_len, np.complex64)])
+    for i in range(0, (len(w) // st.block_len) * st.block_len, st.block_len):
+        st.process(w[i:i + st.block_len])
+    st.flush()
+    return sorted(got)
+
+
+def test_fused_station_adjacent_channels_2500_hz_apart():
+    """Two 1200 bps P channels on the 54W bank's 2.5 kHz raster both carry
+    ACARS and each decodes only its own.  A VFO's audio is its upper
+    sideband, as in the reference: with both sidebands, the lower
+    channel's carrier (1 kHz above it) folds into the upper VFO's audio
+    at 1.5 kHz, on top of that VFO's own carrier."""
+    from aero_tpu.synth import msk_wideband, p_frame_bits
+    rfs = (CENTER + 40000, CENTER + 42500)
+    ini = (f"[General]\nsample_rate={FS}\ncenter_frequency={CENTER}\n"
+           "[vfos]\nsize=2\n" + "".join(
+               f"{i+1}\\frequency={rf}\n{i+1}\\data_rate=1200\n"
+               f"{i+1}\\topic=A{i}\n" for i, rf in enumerate(rfs)))
+    rng = np.random.default_rng(25)
+    n = 9 * FS
+    wb = (rng.normal(0, 0.01, n) + 1j * rng.normal(0, 0.01, n)
+          ).astype(np.complex64)
+    for i, rf in enumerate(rfs):
+        bits = p_frame_bits([(0x250000 + i, f"N25A{i}", f"ADJACENT {i}")],
+                            1200, lead_frames=4, tail_frames=1)
+        sig = msk_wideband(bits, FS, 1200, rf - CENTER + 1000.0, 0.1,
+                           phase0=1.0 + i)
+        wb[: len(sig)] += sig
+    assert _decode(ini, wb) == [("A0", "ADJACENT 0"), ("A1", "ADJACENT 1")]
+
+
+def test_fused_station_bin_centered_on_demod_band():
+    """A 10500 bps VFO half a filterbank bin above a bin center decodes:
+    the bin is chosen around the band its demodulator listens to (8 kHz
+    above the VFO), not around the VFO frequency, which would leave the
+    carrier outside the bin's passband."""
+    rf = CENTER + 60000            # 2.5 bins of 24 kHz above the center
+    ini = (f"[General]\nsample_rate={FS}\ncenter_frequency={CENTER}\n"
+           f"[vfos]\nsize=1\n1\\frequency={rf}\n1\\data_rate=10500\n"
+           "1\\topic=Q\n")
+    from aero_tpu.synth import p_stream
+    rng = np.random.default_rng(26)
+    n = 5 * FS
+    wb = to_wideband(oqpsk_modulate(p_stream(10500, "HALF BIN", 6), 48000,
+                                    10500.0, freq=8000.0),
+                     48000, rf - CENTER, n // 6, FS)
+    wb = wb + (rng.normal(0, 0.003, len(wb))
+               + 1j * rng.normal(0, 0.003, len(wb))).astype(np.complex64)
+    assert _decode(ini, wb) == [("Q", "HALF BIN")]

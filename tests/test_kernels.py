@@ -1,23 +1,11 @@
-"""Pallas kernel (interpret mode) and native C++ component tests."""
+"""Viterbi decoders (lax.scan batch decoder vs native C++) and native
+component tests."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
 from aero_tpu.protocol.viterbi import conv_encode, viterbi_decode_soft
-
-
-def test_pallas_viterbi_interpret_matches_bits():
-    from aero_tpu.ops.pallas.viterbi_kernel import viterbi_decode_soft_pallas
-    rng = np.random.default_rng(0)
-    B, T = 4, 256
-    bits = rng.integers(0, 2, size=(B, T)).astype(np.uint8)
-    soft = np.stack([conv_encode(b) for b in bits]).astype(np.float32)
-    soft = np.clip((soft * 2 - 1 + rng.normal(0, 0.4, soft.shape)) * 127 + 128,
-                   0, 255)
-    dec = np.asarray(viterbi_decode_soft_pallas(jnp.asarray(soft),
-                                                chunk=64, interpret=True))
-    assert np.sum(dec[:, :-8] != bits[:, :-8]) == 0
 
 
 def test_native_viterbi_matches_jax():
@@ -43,9 +31,55 @@ def test_database_stub():
     assert "Registration" in DATABASE_SCHEMA
 
 
-# A register-exchange Viterbi variant (no survivor memory/traceback) was
-# prototyped through round 4 and REMOVED in round 5 after a head-to-head
-# on the real chip: it compiled (the earlier Mosaic stall is gone) but
-# decoded 69.5 Mbit/s vs the traceback kernel's ~12,900 Mbit/s (185x)
-# AND was no longer bit-exact outside interpreter mode.  The traceback
-# kernel (ops/pallas/viterbi_kernel.py, chunk=52) is the production path.
+def _noisy_frames(rate, n, seed, sigma=0.6):
+    """n frames' worth of coded soft bytes in coded-stream order (what the
+    framers hand the batch decoder), plus the 62-soft-bit prefixes."""
+    from aero_tpu.protocol.framing import FRAME_SPECS
+    rng = np.random.default_rng(seed)
+    spec = FRAME_SPECS[rate]
+    info = rng.integers(0, 2, size=(n, spec.payload_info_bits + 31))
+    coded = np.stack([conv_encode(b) for b in info.astype(np.uint8)])
+    soft = np.clip((coded * 2.0 - 1 + rng.normal(0, sigma, coded.shape))
+                   * 127 + 128, 0, 255).astype(np.float32)
+    return soft[:, :62], soft[:, 62:62 + spec.payload_soft_bits]
+
+
+@pytest.mark.parametrize("rate", [600, 1200, 10500])
+def test_batch_decoder_bit_equal_to_native(rate):
+    """The device batch decoder (vmapped lax.scan, protocol/batch_framing)
+    and the native C++ host decoder make the same decisions on noisy
+    frames of each P rate: same trellis, same tie-breaks."""
+    from aero_tpu import native
+    from aero_tpu.protocol.batch_framing import (HISTORY, LOOKAHEAD,
+                                                 batch_decode_p_frames)
+    from aero_tpu.protocol.framing import FRAME_SPECS
+    from aero_tpu.protocol.scrambler import SCRAMBLE_KEYSTREAM
+    if not native.have_native():
+        pytest.skip("no C++ toolchain")
+    n_info = FRAME_SPECS[rate].payload_info_bits
+    prefixes, payloads = _noisy_frames(rate, 4, seed=rate)
+    dev = np.asarray(batch_decode_p_frames(
+        jnp.asarray(payloads), jnp.asarray(prefixes), rate=rate,
+        pre_deinterleaved=True)["info_bits"])
+    ks = SCRAMBLE_KEYSTREAM[:n_info]
+    for i in range(len(payloads)):
+        buf = np.concatenate([prefixes[i], payloads[i],
+                              np.full(LOOKAHEAD, 128.0, np.float32)])
+        bits = native.viterbi_decode_soft_native(buf)
+        host = bits[HISTORY // 2: HISTORY // 2 + n_info] ^ ks
+        np.testing.assert_array_equal(dev[i], host)
+
+
+@pytest.mark.gpu
+def test_batch_decoder_on_gpu_bit_equal_to_cpu(gpu_device):
+    """The batch decoder compiled for the GPU makes the CPU's decisions."""
+    import jax
+    from aero_tpu.protocol.batch_framing import batch_decode_p_frames
+    prefixes, payloads = _noisy_frames(1200, 32, seed=3)
+    out = {}
+    for dev in (gpu_device, jax.devices("cpu")[0]):
+        with jax.default_device(dev):
+            out[dev.platform] = np.asarray(batch_decode_p_frames(
+                jnp.asarray(payloads), jnp.asarray(prefixes), rate=1200,
+                pre_deinterleaved=True)["info_bits"])
+    np.testing.assert_array_equal(out["gpu"], out["cpu"])

@@ -3,7 +3,7 @@ JAX mesh (Gloo collectives over localhost, standing in for DCN) and run the
 time-sharded filter with cross-process halo exchange.
 
 The reference's only distribution mechanism is separate OS processes
-connected by ZMQ (SURVEY.md §2.5); this validates the TPU-native
+connected by ZMQ (SURVEY.md §2.5); this validates the
 replacement — one logical array sharded across hosts — end to end.
 """
 

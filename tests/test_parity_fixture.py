@@ -96,56 +96,3 @@ def test_jaero_and_jsondump_keys_cross_match():
     rep = parity([jd], path)
     os.unlink(path)
     assert rep["parity_pct"] == 100.0 and rep["matched"] == 1
-
-
-def test_readme_bench_generator_round_trips():
-    """README's measured-performance table is GENERATED from bench output
-    (VERDICT r3 weak #2: one source of truth).  Feeding the generator a
-    synthetic bench log must rewrite every row with exactly those
-    numbers, and regenerating with the same log must be idempotent."""
-    import json
-    import tempfile
-    from tools.update_readme_bench import load_log, parse, rewrite
-
-    log = (
-        "calibration: 700000.0 best / 650000.0 median (spread 15%) GFLOP/s "
-        "fixed f32 2048^3 matmul -> cross-round norm factor 0.900 (x)\n"
-        "pfb_full_chain: 12345.6 best / 11111.1 median (spread 20%) MS/s "
-        "wideband, 8000.0 stations x 50 VFOs per chip\n"
-        "cascade_full_chain: 11000.0 best / 10000.0 median (spread 10%) "
-        "MS/s wideband, 7000.0 stations (reference-shaped tree)\n"
-        "demod_only: 25000.0 best / 24000.0 median (spread 5%) MS/s audio\n"
-        "oqpsk_demod: 13000.0 best / 12000.0 median (spread 8%) MS/s audio\n"
-        "burst_window: 100000.0 best / 95000.0 median (spread 12%) MS/s\n"
-        "pallas_viterbi: 14000.0 best / 13000.0 median (spread 9%) Mbit/s\n"
-        "fused_station: 40.0x best / 38.0x median real time END TO END\n"
-        "fused_station_int2: 39.0x best / 37.0x median real time\n"
-        "fused_station_latency: p50 15000 ms / p99 18000 ms ingest->ACARS "
-        "at blocks_per_step=8 depth=2 (throughput shape); p50 150 ms / "
-        "p99 200 ms at blocks_per_step=1 depth=0 (latency shape)\n")
-    d = parse(log)
-    assert set(d) == {"pfb", "cascade", "demod", "oqpsk", "burst",
-                      "viterbi", "fused", "int2", "calibration", "latency"}
-    readme = open(os.path.join(os.path.dirname(FIXDIR), "..",
-                               "README.md")).read()
-    out = rewrite(readme, d, "builder bench run")
-    assert "| 12.3 GS/s wideband | 11.1 GS/s |" in out
-    assert "| 14.0 Gbit/s | 13.0 Gbit/s |" in out
-    assert "| 40.0× real time | 38.0× |" in out
-    assert "| 700 TFLOP/s | 650 TFLOP/s |" in out
-    assert "×0.900 normalizes" in out
-    assert "| p50 15.0 s | p99 18.0 s |" in out
-    assert "| p50 150 ms | p99 200 ms |" in out
-    # the int2 comparison PROSE is regenerated from the same numbers as
-    # the table cells, so claim and table cannot contradict (r4 weak #1)
-    assert "| int2 | 0.5 | 39.0× / 37.0× |" in out
-    assert "int4 ahead by 3% on best" in out
-    assert rewrite(out, d, "builder bench run") == out    # idempotent
-    # a driver BENCH_r0N.json is accepted directly: its `tail` field
-    # holds the same stderr lines (r4 weak #2 structural fix)
-    with tempfile.NamedTemporaryFile("w", suffix=".json",
-                                     delete=False) as f:
-        json.dump({"n": 4, "tail": log}, f)
-    text, label = load_log(f.name)
-    assert text == log and label == "driver BENCH_r04"
-    os.unlink(f.name)

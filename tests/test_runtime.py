@@ -103,7 +103,7 @@ def test_decoder_runtime_file(tmp_path, capsys):
     from aero_tpu.runtime.decoder import Decoder, DecoderOptions
     import wave
 
-    ud = make_acars_userdata("2", "N42TPU", "!", "H1", "A", "RUNTIME TEST MSG")
+    ud = make_acars_userdata("2", "N42AER", "!", "H1", "A", "RUNTIME TEST MSG")
     sus = [append_crc16_bytes(b) for b in segment_isu(ud, 0xABC123, 0x41)]
     fill = append_crc16_bytes(bytes([0x01] + [0] * 9))
     while len(sus) % 6:
@@ -126,7 +126,7 @@ def test_decoder_runtime_file(tmp_path, capsys):
     out = capsys.readouterr().out.strip().splitlines()
     assert out, "no output lines"
     js = json.loads(out[-1])
-    assert js["isu"]["acars"]["reg"] == "N42TPU"
+    assert js["isu"]["acars"]["reg"] == "N42AER"
     assert "RUNTIME TEST MSG" in js["isu"]["acars"]["msg_text"]
     assert js["station"] == "TEST"
 
@@ -251,9 +251,9 @@ def test_station_cli_sigterm_clean_exit(tmp_path):
 
 
 def test_station_cli_compile_cache_and_async_forwarder(tmp_path):
-    """--compile-cache populates a persistent XLA cache dir, and -f
-    forwarders go through the AsyncForwardQueue (final_stats reports
-    forwarded/dropped counters)."""
+    """The station fills the persistent XLA cache named by
+    JAX_COMPILATION_CACHE_DIR, and -f forwarders go through the
+    AsyncForwardQueue (final_stats reports forwarded/dropped counters)."""
     import os
     import socket
     import subprocess
@@ -290,11 +290,11 @@ def test_station_cli_compile_cache_and_async_forwarder(tmp_path):
     iq = tmp_path / "z.cf32"
     import numpy as np
     np.zeros(288000, np.complex64).tofile(iq)
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               JAX_COMPILATION_CACHE_DIR=str(cache))
     out = subprocess.run(
         [sys.executable, "-m", "aero_tpu.runtime.station_main",
          "-c", str(ini), "--iq-file", str(iq), "--platform", "cpu",
-         "--compile-cache", str(cache),
          "-f", f"jsondump=tcp://127.0.0.1:{port}"],
         capture_output=True, timeout=300,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -305,6 +305,60 @@ def test_station_cli_compile_cache_and_async_forwarder(tmp_path):
     # the persistent cache captured at least one compiled executable
     assert cache.is_dir() and any(cache.iterdir())
     srv.close()
+
+
+@pytest.mark.parametrize("env_dir", [True, False])
+def test_compile_cache_dir(tmp_path, env_dir):
+    """The compile cache goes where JAX_COMPILATION_CACHE_DIR says and
+    nowhere else; without it, to the fixed <checkout>/.jax_cache."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    if env_dir:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / "cache")
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import jax\n"
+         "from aero_tpu.utils.profiling import enable_compile_cache\n"
+         "print(enable_compile_cache())\n"
+         "print(jax.config.jax_compilation_cache_dir)"],
+        capture_output=True, text=True, timeout=120, cwd=str(tmp_path),
+        env=dict(env, PYTHONPATH=root))
+    assert out.returncode == 0, out.stderr[-2000:]
+    want = (str(tmp_path / "cache") if env_dir
+            else os.path.join(root, ".jax_cache"))
+    assert out.stdout.split() == [want, want]
+
+
+def test_station_cli_prints_device_line(tmp_path):
+    """The station's first stderr line names the device JAX runs on."""
+    import json
+    import os
+    import subprocess
+    import sys
+    ini = tmp_path / "st.ini"
+    ini.write_text("sample_rate=288000\ncenter_frequency=1545100000\n"
+                   "[vfos]\nsize=1\n1\\frequency=1545100000\n"
+                   "1\\data_rate=1200\n1\\topic=VFO1\n")
+    iq = tmp_path / "empty.cf32"
+    iq.write_bytes(b"")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               JAX_COMPILATION_CACHE_DIR=str(tmp_path / "cache"))
+    out = subprocess.run(
+        [sys.executable, "-m", "aero_tpu.runtime.station_main",
+         "-c", str(ini), "--iq-file", str(iq), "--platform", "cpu"],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = [ln for ln in out.stderr.splitlines() if ln.startswith("{")]
+    dev = json.loads(lines[0])["device"]
+    assert dev["platform"] == "cpu" and dev["count"] >= 1
+    assert isinstance(dev["kind"], str) and dev["kind"]
+    final = json.loads(lines[-1])["final_stats"]
+    assert final["wideband_samples"] == 0 and final["first_block_s"] is None
 
 
 def test_forwarder_flag_comma_list():

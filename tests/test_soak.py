@@ -14,6 +14,7 @@ from aero_tpu.protocol.crc import append_crc16_bytes
 from aero_tpu.protocol.isu import make_acars_userdata, segment_isu
 from aero_tpu.protocol.su_dispatch import PChannelSUDispatcher
 from aero_tpu.io.output import to_output_format
+from aero_tpu.synth import msk_wideband
 
 
 def _acars_fields(msg, aes, nsu_per_field=6):
@@ -24,22 +25,6 @@ def _acars_fields(msg, aes, nsu_per_field=6):
         sus.append(fill)
     return [b"".join(sus[i:i + nsu_per_field])
             for i in range(0, len(sus), nsu_per_field)]
-
-
-def _synth_msk_wb(bits, fs, fb, offset, amp=0.05):
-    sps = fs / fb
-    e = np.empty_like(bits)
-    prev = 0
-    for k in range(len(bits)):
-        cur = bits[k] ^ prev if k % 2 == 0 else bits[k] ^ prev ^ 1
-        e[k] = cur
-        prev = cur
-    steps = np.repeat((1 - 2 * e.astype(np.float64)) * (np.pi / 2) / sps,
-                      int(round(sps)))
-    ph = np.concatenate([[0.0], np.cumsum(steps)])[:-1]
-    n = np.arange(len(ph))
-    return (amp * np.exp(1j * (2 * np.pi * offset / fs * n + ph))
-            ).astype(np.complex64)
 
 
 def test_station_mixed_rates():
@@ -53,10 +38,10 @@ def test_station_mixed_rates():
 
     f1 = _acars_fields("MIXED RATE 1200", 0x111111)
     f2 = _acars_fields("MIXED RATE 600", 0x222222)
-    s1 = _synth_msk_wb(build_p_frames(f1, 1200, lead_frames=3), fs, 1200.0,
-                       1545009000 + 1000 - center)
-    s2 = _synth_msk_wb(build_p_frames(f2, 600, lead_frames=3), fs, 600.0,
-                       1545030000 + 1000 - center)
+    s1 = msk_wideband(build_p_frames(f1, 1200, lead_frames=3), fs, 1200.0,
+                      1545009000 + 1000 - center)
+    s2 = msk_wideband(build_p_frames(f2, 600, lead_frames=3), fs, 600.0,
+                      1545030000 + 1000 - center)
     n = max(len(s1), len(s2)) + 4 * fs
     wb = np.zeros(n, np.complex64)
     wb[: len(s1)] += s1

@@ -8,21 +8,7 @@ from aero_tpu.runtime.station import Station
 from aero_tpu.protocol.framing import build_p_frames
 from aero_tpu.protocol.crc import append_crc16_bytes
 from aero_tpu.protocol.isu import make_acars_userdata, segment_isu
-
-
-def _synth_msk(bits, fs, fb, offset):
-    sps = fs / fb
-    e = np.empty_like(bits)
-    prev = 0
-    for k in range(len(bits)):
-        cur = bits[k] ^ prev if k % 2 == 0 else bits[k] ^ prev ^ 1
-        e[k] = cur
-        prev = cur
-    steps = np.repeat((1 - 2 * e.astype(np.float64)) * (np.pi / 2) / sps,
-                      int(sps))
-    ph = np.concatenate([[0.0], np.cumsum(steps)])[:-1]
-    n = np.arange(len(ph))
-    return 0.05 * np.exp(1j * (2 * np.pi * offset / fs * n + ph))
+from aero_tpu.synth import msk_wideband
 
 
 def test_station_two_vfos():
@@ -46,7 +32,7 @@ def test_station_two_vfos():
             sus.append(fill)
         fields = [b"".join(sus[j:j + 6]) for j in range(0, len(sus), 6)]
         bits = build_p_frames(fields, 1200, lead_frames=3 + i)
-        s = _synth_msk(bits, fs, 1200.0, (rf + 1000) - center)
+        s = msk_wideband(bits, fs, 1200.0, (rf + 1000) - center)
         if wb is None:
             wb = np.zeros(len(s) + 3 * fs, np.complex64)
         wb[:len(s)] += s.astype(np.complex64)
@@ -85,13 +71,13 @@ def test_station_mixed_continuous_and_burst():
     while len(sus) % 6:
         sus.append(fill)
     fields = [b"".join(sus[j:j + 6]) for j in range(0, len(sus), 6)]
-    s1 = _synth_msk(build_p_frames(fields, 1200, lead_frames=3), fs, 1200.0,
-                    9000 + 1000)
+    s1 = msk_wideband(build_p_frames(fields, 1200, lead_frames=3), fs,
+                      1200.0, 9000 + 1000)
     sus2 = segment_isu(make_acars_userdata("2", "N2BRST", "!", "H1", "A",
                                            "BURST IN STATION"),
                        0x222222, 0x41)
     bt = build_t_burst(0x222222, 0x41, sus2, preamble_bits=96)
-    s2 = _synth_msk(bt, fs, 600.0, 30000 + 3000) * 1.6
+    s2 = msk_wideband(bt, fs, 600.0, 30000 + 3000) * 1.6
     pad = fs
     n = max(len(s1), pad + len(s2)) + 4 * fs
     wb = np.zeros(n, np.complex64)
@@ -188,8 +174,8 @@ def test_station_full_54w_bank_capacity():
     # VFO08 sits at 1545.120 MHz; center is 1545.200 MHz -> -80 kHz,
     # plus the usual +1 kHz audio offset (the USB-demod channel puts the
     # carrier above DC, exactly like the reference's SDRReceiver setup)
-    s = _synth_msk(build_p_frames(fields, 1200, lead_frames=3), fs, 1200.0,
-                   -80000 + 1000) * 20.0
+    s = msk_wideband(build_p_frames(fields, 1200, lead_frames=3), fs,
+                     1200.0, -80000 + 1000) * 20.0
     rng = np.random.default_rng(54)
     n = len(s) + fs
     wb = np.zeros(n, np.complex64)
